@@ -4,9 +4,9 @@ Reproduces reference graphs/dataset.py:13-97 semantics:
 - class vocab + node->types mapping from the original graph's triples;
 - every (sum, map) file pair in sorted order becomes a summary Graph with
   its node mapping dicts;
-- 60/20/20 train/test/val split via two sklearn ``train_test_split`` calls
-  with ``random_state=1, shuffle=True`` (dataset.py:27-28) — bitwise split
-  parity with the reference;
+- 60/20/20 train/test/val split reproducing the reference's two sklearn
+  ``train_test_split`` calls with ``random_state=1, shuffle=True``
+  (dataset.py:27-28) in numpy (:func:`shuffle_split`) — the same indices;
 - summary node soft labels computed AFTER scrubbing val/test node types
   (dataset.py:50-56), so evaluation labels never leak into pre-training;
 - asserts summary relation count == original relation count (dataset.py:63).
@@ -18,12 +18,22 @@ import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-from sklearn.model_selection import train_test_split
 
 from scaling_rgcn_training_tpu.graphs import nt
 from scaling_rgcn_training_tpu.graphs import processing as proc
 from scaling_rgcn_training_tpu.graphs.graph import Graph
 from scaling_rgcn_training_tpu.utils import timing
+
+
+def shuffle_split(n: int, test_size: float, seed: int = 1):
+    """(train, test) index arrays of a seeded shuffle split of ``n`` items.
+
+    Equal to sklearn ``train_test_split(..., test_size, random_state=seed,
+    shuffle=True)``: a ``RandomState(seed)`` permutation whose first
+    ``ceil(test_size * n)`` entries are the test rows."""
+    perm = np.random.RandomState(seed).permutation(n)
+    n_test = int(np.ceil(test_size * n))
+    return perm[n_test:], perm[:n_test]
 
 
 class Dataset:
@@ -97,10 +107,13 @@ class Dataset:
             og.org2type_dict, self.enum_classes, self.num_classes)
 
         g_idx, g_labels = proc.get_idx_labels(og, og.org2type)
-        X_train, X_test, y_train, y_test = train_test_split(
-            g_idx, g_labels, test_size=0.2, random_state=1, shuffle=True)
-        X_train, X_val, y_train, y_val = train_test_split(
-            X_train, y_train, test_size=0.25, random_state=1, shuffle=True)
+        g_idx, g_labels = np.asarray(g_idx), np.asarray(g_labels)
+        train, test = shuffle_split(len(g_idx), 0.2)
+        X_train, X_test = g_idx[train], g_idx[test]
+        y_train, y_test = g_labels[train], g_labels[test]
+        train, val = shuffle_split(len(X_train), 0.25)
+        X_train, X_val = X_train[train], X_train[val]
+        y_train, y_val = y_train[train], y_train[val]
 
         og.x_train = np.asarray(X_train, np.int32)
         og.y_train = np.asarray(y_train, np.float32)

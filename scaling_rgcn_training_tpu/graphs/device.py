@@ -1,6 +1,6 @@
 """DeviceGraph: the frozen pytree of device arrays one graph trains on.
 
-The TPU-native replacement for the reference's PyG ``Data`` object
+The replacement for the reference's PyG ``Data`` object
 (graphs/graph.py:65-69 + dataset.py:30-35): relation-sorted static-shaped
 edge arrays (see ops/rgcn_conv.py) plus split index/label arrays, ready to
 be closed over by a jitted training step. Built once per graph on the host.
@@ -49,7 +49,7 @@ def build_device_graph(graph: Graph, pad_to_multiple: int = 512,
     "halo"), the edge list is partitioned across the mesh instead —
     ``rgcn_conv`` dispatches on the edge pytree type, so models and the
     trainer run unchanged (the reference is single-device,
-    model/modelTrainer.py:16; this is the TPU-native scaling path).
+    model/modelTrainer.py:16; this is the multi-device scaling path).
 
     ``reorder`` (halo only): relabel nodes by label-propagation clustering
     (parallel/reorder.py) before partitioning, shrinking the halo exchange

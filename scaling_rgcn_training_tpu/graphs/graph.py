@@ -1,7 +1,7 @@
 """Graph container: vocab build + relational edge list as numpy arrays.
 
 Reproduces the reference ``Graph`` semantics (graphs/graph.py:8-69) with a
-TPU-friendly representation: instead of a PyG ``Data(edge_index, edge_type)``
+device-friendly representation: instead of a PyG ``Data(edge_index, edge_type)``
 object, edges are flat numpy int32 arrays ready to become static-shaped device
 arrays.
 

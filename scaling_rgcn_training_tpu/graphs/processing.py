@@ -158,7 +158,7 @@ def mapping_index_arrays(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Vectorized transfer map: aligned (org_idx, sum_idx) int arrays.
 
-    TPU-native replacement for the reference's per-node dict loop in
+    Vectorized replacement for the reference's per-node dict loop in
     model/embeddingTricks.py:19-23: for every original node that maps to an
     in-vocab summary node, yields its integer id and the summary node's
     integer id, so embedding transfer becomes one gather + one scatter.

@@ -8,8 +8,8 @@ test-set results over ``-i`` iterations.
 Extra flags beyond the reference (all optional, defaults match it):
 ``-data_root`` (where ``graphs/{ds}/...`` lives; falls back to the
 read-only reference checkout for TEST/AIFB fixtures), ``-seed``,
-``-backend`` (conv op backend), ``-num_bases``/``-num_blocks`` (weight
-decomposition), ``-synth_*`` (synthetic dataset scale).
+``-num_bases``/``-num_blocks`` (weight decomposition), ``-synth_*``
+(synthetic dataset scale).
 """
 
 from __future__ import annotations
@@ -89,7 +89,6 @@ def run_experiments(configs: Dict[str, Any], org_path: str, sum_path: str,
         trainer = Trainer(
             data, configs["hl"], configs["epochs"], configs["emb"], configs["lr"],
             weight_d=0.00005, seed=configs.get("seed", 0) * 1000 + j,
-            backend=configs.get("backend"),
             num_bases=configs.get("num_bases"), num_blocks=configs.get("num_blocks"),
             compute_dtype=configs.get("compute_dtype"),
             aggr=configs.get("aggr") or "mean",
@@ -162,7 +161,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-w_grad", type=strtobool, default=True)
     parser.add_argument("-e_viz", type=strtobool, default=False)
     parser.add_argument("-create_attr_sum", type=strtobool, default=False)
-    # TPU-framework extras
+    # extras beyond the reference
     parser.add_argument("-data_root", type=str, default=None)
     parser.add_argument("-ckpt_dir", type=str, default=None,
                         help="save/resume summary pre-training state here")
@@ -175,21 +174,19 @@ def build_parser() -> argparse.ArgumentParser:
                              "minutes of preprocessing per run at AM scale")
     parser.add_argument("-results_root", type=str, default="./results")
     parser.add_argument("-seed", type=int, default=0)
-    parser.add_argument("-backend", type=str, default=None,
-                        choices=["ragged", "gather", "pallas"])
     parser.add_argument("-compute_dtype", type=str, default=None,
                         choices=["bfloat16"],
                         help="mixed precision for the conv's edge streams")
     parser.add_argument("-devices", type=int, default=None,
-                        help="partition training over this many chips "
-                             "(mesh over ICI; 1/None = single device)")
+                        help="partition training over this many devices "
+                             "(1/None = single device)")
     parser.add_argument("-partition", type=str, default="halo",
                         choices=["edge", "halo"],
                         help="edge: replicated features + psum; halo: "
                              "node-sharded with all_to_all boundary exchange")
     parser.add_argument("-reorder", action="store_true",
                         help="halo partition: relabel nodes by clustering "
-                             "(label propagation) first - shrinks the ICI "
+                             "(label propagation) first - shrinks the "
                              "halo exchange on community-structured graphs")
     parser.add_argument("-aggr", type=str, default="mean",
                         choices=["mean", "attention"],

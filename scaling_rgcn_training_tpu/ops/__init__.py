@@ -1,11 +1,11 @@
-"""TPU-native sparse relational ops.
+"""Sparse relational ops.
 
 The center of the framework: a per-relation sparse aggregation (the math of
 PyG ``RGCNConv`` as used by the reference at model/layers.py:15-16,21-23)
-re-designed for TPU:
+re-designed as a few large XLA operations:
 
 - edges are stored sorted by relation so the per-edge transform is one
-  grouped (ragged) matmul that rides the MXU,
+  grouped matmul,
 - per-(node, relation) mean normalization is a precomputed static per-edge
   coefficient,
 - aggregation is a single segment-sum scatter keyed on destination node,

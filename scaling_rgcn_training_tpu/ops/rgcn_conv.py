@@ -8,37 +8,23 @@ default ``aggr='mean'``, ``root_weight=True``, ``bias=True``):
 
 where ``N_r(i)`` are sources of edges of relation ``r`` arriving at ``i``.
 
-TPU-native design (none of this mirrors PyG's implementation). Everything
-is static-shaped and driven by a measured performance model of the chip:
+Dataflow (none of this mirrors PyG's R masked passes):
 
-- HBM traffic is the bottleneck; the MXU is effectively free at these
-  operand sizes (v5e measured: 200 GB/s streaming vs 58 TFLOP/s f32).
-- XLA gathers stream from HBM fine at any table size; XLA scatters fall
-  off an ~80x cliff once the target table exceeds VMEM (measured:
-  [1M,16] rows into 3 MB table = 1.4 ms, into 131 MB table = 112 ms).
-
-Hence:
 - Edges are preprocessed ONCE per graph into :class:`RelEdges`: sorted by
   (relation, dst), padded to a static size, with the per-edge
   ``1/deg_r(dst)`` mean coefficient precomputed (pads carry ``norm=0``).
-- The forward picks its dataflow by traffic (``_edge_traffic_mode``):
-  * ``prematmul`` — transform-first. ``Z[r] = X @ W[r]`` on the MXU, then
-    per-edge gather from Z + scatter on the NARROW d_out side only.
-  * ``edge`` — gather x[src] -> one grouped matmul over the
-    relation-contiguous rows (``lax.ragged_dot`` or the Pallas kernel)
-    -> scale -> segment-sum. Used when Z would not fit (huge N*R).
-- The backward is hand-written (``relational_aggregate``'s custom VJP) so
-  that NO scatter ever targets a table larger than VMEM on TPU:
-  * small/medium N*R: ONE write-once Pallas segmented reduction
-    (ops/segment_kernels.py) of the cotangent messages keyed by the
-    precomputed (src, rel)-sorted order into [N, slots, h], followed by
-    dense MXU contractions for dx and dw;
-  * large N (cotangent table would not fit): per-edge transform back to
-    d_in via the grouped matmul, then a src-sorted write-once reduction
-    into [N, d_in]; dw via the Pallas grouped outer-product kernel.
-  The forward's [N, h] scatter likewise switches to a dst-sorted
-  write-once reduction once it would exceed VMEM.
-  Off-TPU (CPU/GPU tests), plain XLA scatters are used — no cliff there.
+- The forward is one of two plain XLA dataflows, picked from the shapes
+  (``select_mode``):
+  * ``edge`` — gather ``x[src]`` -> one grouped matmul over the
+    relation-contiguous rows (ops/grouped_matmul.py) -> scale ->
+    ``segment_sum`` onto dst;
+  * ``prematmul`` — transform first: ``Z = X @ [W_0 .. W_R]`` as one dense
+    matmul, then gather the ``d_out``-wide rows ``Z[src, rel]`` -> scale ->
+    ``segment_sum``.
+- The backward is JAX's autodiff of those same operations: the gathers
+  transpose to scatter-adds (in float32, ``take_rows``), the grouped
+  matmul to its two transposes (no per-edge ``[E, d_in, d_out]`` outer
+  product is ever formed).
 - Basis / block-diagonal decompositions (features the reference's op API
   exposes but leaves disabled) are first-class: weights are stored
   decomposed and materialized to ``[R, in, out]`` on the fly (tiny).
@@ -53,25 +39,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scaling_rgcn_training_tpu.ops.grouped_matmul import grouped_matmul
-from scaling_rgcn_training_tpu.ops.segment_kernels import (
-    SegmentPlan, plan_segmented_reduce, sorted_segment_sum_pallas)
-
-import os as _os
-
-# scatters into tables beyond this are the slow path (VMEM cliff + init
-# traffic); drives forward-mode and backward-strategy selection.
-# Env-overridable for measurement/tuning (RGCN_* in bytes / entries).
-_SMALL_TABLE_BYTES = int(_os.environ.get("RGCN_SMALL_TABLE_BYTES", 256 << 20))
-# cap on N*slots for materializing the [N*slots, h] cotangent in backward
-_MAX_COTANGENT_ENTRIES = int(_os.environ.get("RGCN_MAX_COTANGENT_ENTRIES", 8 << 20))
-# scatter targets beyond this no longer fit VMEM -> use the Pallas reduction
-_VMEM_TABLE_BYTES = int(_os.environ.get("RGCN_VMEM_TABLE_BYTES", 8 << 20))
-# minimum d_in for the fused forward. With the relation-banded span
-# kernels this is 0 (always fused): measured at E=4M, slots=91 on v5e the
-# span kernel runs d64->16 in 3.6ms and d16->8 in 3.4ms, vs ~11ms for the
-# edge mode's [E, d_in] gather alone. (The pre-band kernels needed >=32.)
-_FUSED_MIN_DIN = int(_os.environ.get("RGCN_FUSED_MIN_DIN", 0))
+from scaling_rgcn_training_tpu.ops.grouped_matmul import (
+    aligned_group_layout, grouped_matmul)
 
 
 class RelEdges(NamedTuple):
@@ -79,59 +48,25 @@ class RelEdges(NamedTuple):
 
     ``src``/``dst``/``rel``: int32 [E_pad]; ``norm``: float32 [E_pad] (the
     ``1/deg_r(dst)`` mean coefficient, 0 for padding rows); ``group_sizes``:
-    int32 [num_slots] edge counts per relation slot (padding rows are
-    appended to the final slot, which the reference keeps empty — see
-    ``Graph.num_relation_slots``).
-
-    Backward-pass layout (src-major ordering for the write-once Pallas
-    reductions): ``bwd_perm`` [E_pad] permutation to (src, rel)-sorted
-    order; ``bwd_src`` [E_pad] src values in that order; ``bwd_keys``
-    [E_pad] ``src*slots + rel`` keys in that order (None when N*slots is
-    too large to materialize the [N*slots, h] cotangent); ``bwd_plan``
-    the bucket plan over N*slots segments (or over N segments when
-    bwd_keys is None — the large-graph path).
-
-    Static aux: ``num_nodes``, ``group_offsets`` (per-slot edge offsets,
-    drives static per-relation slicing).
+    int32 [num_slots] rows per relation slot. Every slot is padded to a
+    multiple of ``grouped_matmul.TILE`` rows (the tile-aligned layout the
+    grouped matmul needs); the remaining padding goes to the final slot,
+    which the reference keeps empty — see ``Graph.num_relation_slots``.
+    ``num_nodes`` is static.
     """
 
     src: jnp.ndarray
     dst: jnp.ndarray
     norm: jnp.ndarray
-    group_sizes: jnp.ndarray
     rel: jnp.ndarray
-    bwd_perm: Optional[jnp.ndarray]
-    bwd_src: Optional[jnp.ndarray]
-    bwd_keys: Optional[jnp.ndarray]
-    bwd_plan: Optional[SegmentPlan]
-    dst_perm: Optional[jnp.ndarray]
-    dst_sorted: Optional[jnp.ndarray]
-    dst_plan: Optional[SegmentPlan]
+    group_sizes: jnp.ndarray
     num_nodes: int
-    group_offsets: tuple = ()
-    # relation-banded fused-kernel plans (ops/span_kernels.py): fspan is
-    # dst-bucketed (forward), bspan src-bucketed (backward)
-    fspan: Optional[object] = None
-    bspan: Optional[object] = None
 
 
 jax.tree_util.register_pytree_node(
     RelEdges,
-    lambda e: ((e.src, e.dst, e.norm, e.group_sizes, e.rel,
-                e.bwd_perm, e.bwd_src, e.bwd_keys, e.bwd_plan,
-                e.dst_perm, e.dst_sorted, e.dst_plan,
-                e.fspan, e.bspan),
-               (e.num_nodes, e.group_offsets)),
-    lambda aux, ch: RelEdges(*ch[:12], num_nodes=aux[0], group_offsets=aux[1],
-                             fspan=ch[12], bspan=ch[13]),
-)
-
-# SegmentPlan: offsets array is data; the shape/bucket ints are static.
-jax.tree_util.register_pytree_node(
-    SegmentPlan,
-    lambda p: ((p.offsets,),
-               (p.num_segments, p.bucket_rows, p.chunk, p.max_chunks, p.padded_edges)),
-    lambda aux, ch: SegmentPlan(ch[0], *aux),
+    lambda e: ((e.src, e.dst, e.norm, e.rel, e.group_sizes), (e.num_nodes,)),
+    lambda aux, ch: RelEdges(*ch, num_nodes=aux[0]),
 )
 
 
@@ -144,15 +79,16 @@ def build_rel_edges(
     pad_to_multiple: int = 512,
     cache_dir: Optional[str] = None,
 ) -> RelEdges:
-    """Preprocess a raw edge list into the static TPU layout.
+    """Preprocess a raw edge list into the static device layout.
 
     Host-side, runs once per graph. Sorts edges by (relation, dst) —
     relation-contiguity feeds the grouped matmul; dst-sortedness within
-    each relation keeps the forward scatter access pattern monotonic.
+    each relation keeps the scatter's access pattern monotonic. The row
+    count is a multiple of ``pad_to_multiple`` and of the grouped matmul's
+    tile.
 
     ``cache_dir``: persist/load the finished plan on disk keyed by a
-    content hash of the inputs (utils/plancache.py) — at AM scale a cold
-    build costs minutes, a cache hit seconds.
+    content hash of the inputs (utils/plancache.py).
     """
     from scaling_rgcn_training_tpu.utils.plancache import get_or_build, to_device
 
@@ -180,7 +116,6 @@ def _build_rel_edges_host(
     edge_src = np.asarray(edge_src, np.int32)
     edge_dst = np.asarray(edge_dst, np.int32)
     edge_type = np.asarray(edge_type, np.int32)
-    e = edge_src.shape[0]
 
     order = np.lexsort((edge_dst, edge_type))
     src, dst, typ = edge_src[order], edge_dst[order], edge_type[order]
@@ -190,94 +125,21 @@ def _build_rel_edges_host(
     uniq, inv, counts = np.unique(keys, return_inverse=True, return_counts=True)
     norm = (1.0 / counts[inv]).astype(np.float32)
 
-    group_sizes = np.bincount(typ, minlength=num_slots).astype(np.int32)
+    pos, group_sizes = aligned_group_layout(typ, num_slots, pad_to_multiple)
+    return RelEdges(*_scatter_rows(pos, group_sizes, src, dst, norm),
+                    group_sizes=group_sizes, num_nodes=int(num_nodes))
 
-    e_pad = max(pad_to_multiple, -(-e // pad_to_multiple) * pad_to_multiple)
-    n_pad = e_pad - e
-    if n_pad:
-        src = np.concatenate([src, np.zeros(n_pad, np.int32)])
-        dst = np.concatenate([dst, np.zeros(n_pad, np.int32)])
-        norm = np.concatenate([norm, np.zeros(n_pad, np.float32)])
-        typ = np.concatenate([typ, np.full(n_pad, num_slots - 1, np.int32)])
-        group_sizes[num_slots - 1] += n_pad  # pad rows live in the empty slot
 
-    # backward layout: (src, rel)-sorted order for the per-edge-transform
-    # fallback; the reduction segments are the N source nodes.
-    perm = np.lexsort((typ, src)).astype(np.int32)
-    bwd_perm = perm
-    bwd_src = src[perm]
-    bwd_plan = plan_segmented_reduce(bwd_src, num_nodes)
-
-    # dst-major layout for the dst-sorted write-once reduction the
-    # non-fused forward uses past the VMEM cliff
-    dperm = np.argsort(dst, kind="stable").astype(np.int32)
-    dst_perm = dperm
-    dst_sorted = dst[dperm]
-    dst_plan = plan_segmented_reduce(dst[dperm], num_nodes)
-
-    # relation-banded fused-kernel plans: only over REAL edges (the span
-    # planner re-pads per chunk itself). The backward uses smaller key
-    # buckets: its per-edge [sub, s] one-hot dots write d_in<=64 lanes, so
-    # MXU time scales with s (measured on v5e: L2 bwd 24ms at s=512).
-    from scaling_rgcn_training_tpu.ops.span_kernels import plan_rel_span
-
-    real = norm > 0
-    # fwd buckets default to 384 rows (r5 chip sweep: s=512/448/384/320 ->
-    # 69.4/69.2/69.0/70.1 ms — the scatter one-hot narrows while the band
-    # window stays above the chunk). On many-relation graphs the window
-    # shrinks below the chunk and padding explodes (AM-like 267 slots:
-    # 1.51x at 384 vs 1.13x at 512) — fall back to 512 when padding runs
-    # past 1.10x the real edge count.
-    fwd_s_env = int(_os.environ.get("RGCN_SPAN_FWD_S", 0))
-    fwd_chunk = int(_os.environ.get("RGCN_SPAN_FWD_CHUNK", 0))
-    n_real = int(real.sum())
-    fspan = plan_rel_span(src[real], dst[real], typ[real], norm[real],
-                          num_nodes, num_slots,
-                          bucket_rows=fwd_s_env or 384, chunk=fwd_chunk)
-    if not fwd_s_env and fspan.padded_edges > 1.10 * max(n_real, 1):
-        fspan = plan_rel_span(src[real], dst[real], typ[real], norm[real],
-                              num_nodes, num_slots, bucket_rows=512,
-                              chunk=fwd_chunk)
-    # bwd buckets default to 224 rows: the [sub, s] scatter one-hot cost
-    # scales with s while padding scales inversely (band windows shrink
-    # with the bucket). The r5 chip sweep at the bench shape:
-    # s=512/256/224/192/160/128 -> step 72+/70.0/69.4/69.4/70.6/79.0 ms,
-    # and s=224 also has the LEAST padding (1.032x vs 256's 1.050x).
-    # BUT small buckets multiply (bucket, relation-band) cells, and on
-    # many-relation graphs the chunk padding explodes (measured: AM shape,
-    # 267 slots, s=256 blew HBM by 6 GB) - so fall back to 512 when the
-    # padded size runs away from fspan's.
-    bwd_s_env = int(_os.environ.get("RGCN_SPAN_BWD_S", 0))
-    bwd_k = int(_os.environ.get("RGCN_SPAN_BWD_K", 0))
-    bwd_chunk = int(_os.environ.get("RGCN_SPAN_BWD_CHUNK", 0))
-    bspan = plan_rel_span(dst[real], src[real], typ[real], norm[real],
-                          num_nodes, num_slots,
-                          bucket_rows=bwd_s_env or 224, kspan=bwd_k,
-                          chunk=bwd_chunk)
-    if not bwd_s_env and bspan.padded_edges > 1.25 * fspan.padded_edges:
-        bspan = plan_rel_span(dst[real], src[real], typ[real], norm[real],
-                              num_nodes, num_slots, bucket_rows=512,
-                              kspan=bwd_k, chunk=bwd_chunk)
-
-    offsets = tuple(int(v) for v in np.concatenate([[0], np.cumsum(group_sizes)]))
-    return RelEdges(
-        src=src,
-        dst=dst,
-        norm=norm,
-        group_sizes=group_sizes,
-        rel=typ,
-        bwd_perm=bwd_perm,
-        bwd_src=bwd_src,
-        bwd_keys=None,
-        bwd_plan=bwd_plan,
-        dst_perm=dst_perm,
-        dst_sorted=dst_sorted,
-        dst_plan=dst_plan,
-        num_nodes=int(num_nodes),
-        group_offsets=offsets,
-        fspan=fspan,
-        bspan=bspan,
-    )
+def _scatter_rows(pos, group_sizes, src, dst, norm):
+    """(src, dst, norm, rel) laid out at rows ``pos`` of the aligned layout;
+    padding rows get src = dst = 0 and norm = 0."""
+    rows = int(group_sizes.sum())
+    out_src = np.zeros(rows, np.int32)
+    out_dst = np.zeros(rows, np.int32)
+    out_norm = np.zeros(rows, np.float32)
+    out_src[pos], out_dst[pos], out_norm[pos] = src, dst, norm
+    rel = np.repeat(np.arange(len(group_sizes), dtype=np.int32), group_sizes)
+    return out_src, out_dst, out_norm, rel
 
 
 class RGCNLayerParams(NamedTuple):
@@ -359,149 +221,74 @@ def init_rgcn_layer(
     )
 
 
-def _edge_traffic_mode(num_nodes: int, num_slots: int, num_edges: int,
-                       d_in: int, d_out: int) -> str:
-    """Pick the forward dataflow by HBM traffic (the measured bottleneck).
+def select_mode(num_nodes: int, num_slots: int, num_edges: int,
+                d_in: int, d_out: int) -> str:
+    """Pick the forward dataflow from the layer's shapes (see module doc).
 
-    ``prematmul`` moves 4*d_out bytes/edge (fwd gather + bwd gather of the
-    cotangent) at the cost of the [R, N, d_out] Z table; ``edge`` moves
-    ~2*(d_in + d_out) bytes/edge with no table. Z must also stay well clear
-    of the scatter cliff for the backward's per-relation reduction.
-    """
-    z_bytes = num_nodes * num_slots * d_out * 4
-    if d_out < d_in and z_bytes < 2 * num_edges * d_in * 4 and \
-            z_bytes < _SMALL_TABLE_BYTES:
+    ``prematmul`` trades the ``[E, d_in]`` source gather for a dense
+    ``[N * slots, d_out]`` table; it pays while that table is at most twice
+    the gather's size. Tuned on float32 timings of an H100 at the bench
+    and AM shapes (scripts/time_conv_modes.py, PERF.md); in bfloat16 the
+    edge dataflow is ahead by 5% at the bench's first layer, which this
+    rule gives up."""
+    z_elems = num_nodes * num_slots * d_out
+    if d_out < d_in and z_elems <= 2 * num_edges * d_in:
         return "prematmul"
     return "edge"
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4))
+def take_rows(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
+    """``table[idx]`` whose gradient scatter-adds in float32.
+
+    Autodiff of a gather scatter-adds the cotangent in the table's dtype;
+    for a bfloat16 table that accumulates a node's in-edges in bfloat16.
+    Here the sum runs in float32 and is rounded once."""
+    return _take_rows(table, idx, (table.shape[0], jnp.dtype(table.dtype)))
+
+
+@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
+def _take_rows(table, idx, table_meta):
+    return jnp.take(table, idx, axis=0)
+
+
+def _take_rows_fwd(table, idx, table_meta):
+    return _take_rows(table, idx, table_meta), idx
+
+
+def _take_rows_bwd(table_meta, idx, ct):
+    rows, dtype = table_meta
+    dtable = jax.ops.segment_sum(ct.astype(jnp.float32), idx,
+                                 num_segments=rows)
+    return dtable.astype(dtype), np.zeros(idx.shape, jax.dtypes.float0)
+
+
+_take_rows.defvjp(_take_rows_fwd, _take_rows_bwd)
+
+
 def relational_aggregate(x, w, edges: RelEdges, mode: str = "edge",
                          backend: Optional[str] = None):
     """sum_e norm_e * (x[src_e] @ W[rel_e]) scattered onto dst: [N, d_out].
 
-    The message-passing core with a hand-written backward (see module
-    docstring for the dataflow rationale). ``mode``/``backend`` are static.
-    """
-    return _aggregate_fwd_impl(x, w, edges, mode, backend)
-
-
-def _acc_dtype(dtype):
-    """Aggregation accumulates (and returns) f32 for low-precision inputs."""
-    return jnp.float32 if dtype in (jnp.bfloat16, jnp.float16) else dtype
-
-
-def _aggregate_fwd_impl(x, w, edges: RelEdges, mode, backend):
+    Low-precision inputs stream in their own dtype; the scale, the
+    scatter and the result are float32."""
     n = edges.num_nodes
     d_out = w.shape[2]
-    acc = _acc_dtype(x.dtype)
-    if mode == "fused":
-        # ONE relation-banded kernel: per-edge relational matmul +
-        # write-once scatter over dst-bucketed edges; only the [E, d_in]
-        # source gather stays in XLA
-        from scaling_rgcn_training_tpu.ops.span_kernels import (
-            plan_take, rel_span_matmul_scatter)
-
-        span = edges.fspan
-        # standalone pure gather; the kernel applies span.norm itself
-        # (plan_take: indices are plan-built, skip XLA's OOB clamp select)
-        vals = plan_take(x, span.gather_idx)
-        return rel_span_matmul_scatter(vals, span, w).astype(acc)
+    acc = jnp.float32 if x.dtype in (jnp.bfloat16, jnp.float16) else x.dtype
     if mode == "prematmul":
         slots = w.shape[0]
         # ONE flat matmul: [N, d] @ [d, slots*h] -> [N*slots, h] in src-major
-        # layout, so the gather key is src*slots + rel (and the backward's
-        # (src, rel)-sorted cotangent reduction writes the same layout)
+        # layout, so the gather key is src*slots + rel
         w_flat = jnp.swapaxes(w, 0, 1).reshape(w.shape[1], slots * d_out)
         z = jnp.dot(x, w_flat, preferred_element_type=jnp.float32
                     ).astype(x.dtype).reshape(n * slots, d_out)
-        msg = jnp.take(z, edges.src * slots + edges.rel, axis=0)
+        msg = take_rows(z, edges.src * slots + edges.rel)
+    elif mode == "edge":
+        msg = grouped_matmul(take_rows(x, edges.src), w, edges.group_sizes,
+                             backend=backend)
     else:
-        msg = jnp.take(x, edges.src, axis=0)
-        msg = grouped_matmul(msg, w, edges.group_sizes, backend=backend,
-                             static_offsets=edges.group_offsets)
-    # the norm scale promotes low-precision msg to f32: the d_out-narrow
-    # scatter side always accumulates (and returns) f32
+        raise ValueError(f"unknown aggregation mode {mode!r}")
     msg = msg * edges.norm[:, None].astype(acc)
-    if (edges.dst_plan is not None and jax.default_backend() == "tpu"
-            and n * d_out * 4 > _VMEM_TABLE_BYTES):
-        msg = jnp.take(msg, edges.dst_perm, axis=0)
-        return sorted_segment_sum_pallas(msg, edges.dst_sorted, edges.dst_plan
-                                         ).astype(acc)
     return jax.ops.segment_sum(msg, edges.dst, num_segments=n).astype(acc)
-
-
-def _aggregate_fwd(x, w, edges, mode, backend):
-    return _aggregate_fwd_impl(x, w, edges, mode, backend), (x, w, edges)
-
-
-def _aggregate_bwd(mode, backend, res, g_out):
-    x, w, edges = res
-    n = edges.num_nodes
-    slots, d_in, d_out = w.shape
-    on_tpu = jax.default_backend() == "tpu"
-    from scaling_rgcn_training_tpu.ops.span_kernels import (
-        fused_ok, rel_span_backward_scatter)
-
-    use_fused = on_tpu and edges.bspan is not None and fused_ok(
-        slots, d_in, d_out)
-    if not use_fused:
-        g_msg = jnp.take(g_out, edges.dst, axis=0) * edges.norm[:, None]  # [E, h]
-
-    if not on_tpu:
-        # CPU/GPU: XLA scatter has no VMEM cliff; plain formulation
-        dmsg = grouped_matmul(g_msg.astype(w.dtype), jnp.swapaxes(w, 1, 2),
-                              edges.group_sizes, backend=backend,
-                              static_offsets=edges.group_offsets)   # [E, d_in]
-        dx = jax.ops.segment_sum(dmsg, edges.src, num_segments=n).astype(x.dtype)
-        xs = jnp.take(x, edges.src, axis=0)
-        # dw[r] = sum_{e in r} x[src_e]^T g_msg_e — one segment-sum of edge
-        # outer products per relation via einsum over the group one-hot
-        gid = jnp.repeat(jnp.arange(slots), jnp.asarray(edges.group_sizes),
-                         total_repeat_length=g_msg.shape[0])
-        dz_pairs = xs[:, :, None] * g_msg[:, None, :]               # [E, d_in, d_out]
-        dw = jax.ops.segment_sum(
-            dz_pairs.reshape(-1, d_in * d_out), gid, num_segments=slots
-        ).reshape(slots, d_in, d_out).astype(w.dtype)
-        return dx, dw, None
-
-    if use_fused:
-        # ONE relation-banded kernel over src-bucketed edges produces BOTH
-        # dx and dW (write-once src buckets; W and the dW accumulator live
-        # in VMEM). The only XLA pass is re-gathering the cotangent from
-        # the small [N, d_out] table in span order — cheaper than permuting
-        # the [E, d_out] message stream.
-        from scaling_rgcn_training_tpu.ops.span_kernels import plan_take
-
-        span = edges.bspan
-        # cast before the gather: convert [N, d_out] once, not [E, d_out]
-        t = plan_take(g_out.astype(w.dtype), span.gather_idx)
-        dx, dw = rel_span_backward_scatter(t, span, x, w)
-        dx = dx.astype(x.dtype)
-        dw = dw.astype(w.dtype)
-    else:
-        # large-N path: per-edge transform back to d_in, then a write-once
-        # src-sorted reduction into [N, d_in]. In mixed precision the
-        # d_in-wide intermediates stay low-precision (half the HBM traffic
-        # of the two big streams: the permutation gather and x[src]).
-        dmsg = grouped_matmul(g_msg.astype(w.dtype), jnp.swapaxes(w, 1, 2),
-                              edges.group_sizes, backend=backend,
-                              static_offsets=edges.group_offsets)   # [E, d_in]
-        dmsg_sorted = jnp.take(dmsg, edges.bwd_perm, axis=0)
-        dx = sorted_segment_sum_pallas(dmsg_sorted, edges.bwd_src,
-                                       edges.bwd_plan).astype(x.dtype)
-        xs = jnp.take(x, edges.src, axis=0)                         # [E, d_in]
-        from scaling_rgcn_training_tpu.ops import pallas_kernels
-
-        dw = pallas_kernels._drhs(xs, g_msg, edges.group_sizes,
-                                  (slots, d_in, d_out),
-                                  static_offsets=edges.group_offsets
-                                  ).astype(w.dtype)
-
-    return dx, dw, None
-
-
-relational_aggregate.defvjp(_aggregate_fwd, _aggregate_bwd)
 
 
 def rgcn_conv(
@@ -525,11 +312,13 @@ def rgcn_conv(
     (ops/sddmm.py ``attention_aggregate``; a capability the reference's
     PyG op does not offer, SURVEY.md §7.5's other op-library half).
 
+    ``mode``: ``"auto"`` (``select_mode``), ``"edge"`` or ``"prematmul"``.
+
     ``compute_dtype`` (e.g. ``jnp.bfloat16``): mixed precision — the wide
-    per-edge streams (source-feature gathers, grouped matmuls, permutation
-    gathers) run in the low dtype, halving the dominant HBM traffic, while
-    every reduction (segment sums, MXU accumulation, dw) and the output
-    stay float32. Params are stored f32 throughout.
+    per-edge streams (source-feature gathers, grouped matmuls) run in the
+    low dtype, halving the dominant memory traffic, while every reduction
+    (segment sums, matmul accumulation, dw) and the output stay float32.
+    Params are stored f32 throughout.
 
     Dispatch: when ``edges`` is a ``parallel.ShardedRelEdges`` (edge lists
     partitioned over a device mesh), the SPMD path runs instead — models
@@ -540,8 +329,8 @@ def rgcn_conv(
         raise ValueError(
             "aggr='attention' is a single-device mode in this release: the "
             "distributed aggregation paths implement the mean-normalized "
-            "conv (their edge coefficients are baked into the static halo/"
-            "span plans; attention weights are data-dependent)")
+            "conv (their edge coefficients are baked into the static halo "
+            "plans; attention weights are data-dependent)")
     if type(edges).__name__ == "ShardedRelEdges":
         from scaling_rgcn_training_tpu.parallel import current_mesh, sharded_rgcn_conv
 
@@ -574,15 +363,8 @@ def rgcn_conv(
         return agg + x @ params.root + params.bias
     assert aggr == "mean", f"unknown aggr {aggr!r}"
     if mode == "auto":
-        from scaling_rgcn_training_tpu.ops.span_kernels import fused_ok
-
-        if (jax.default_backend() == "tpu" and edges.fspan is not None
-                and fused_ok(w.shape[0], w.shape[1], w.shape[2])
-                and w.shape[1] >= _FUSED_MIN_DIN):
-            mode = "fused"
-        else:
-            mode = _edge_traffic_mode(edges.num_nodes, w.shape[0],
-                                      edges.src.shape[0], w.shape[1], w.shape[2])
+        mode = select_mode(edges.num_nodes, w.shape[0], edges.src.shape[0],
+                           w.shape[1], w.shape[2])
     if compute_dtype is not None:
         cd = jnp.dtype(compute_dtype)
         agg = relational_aggregate(x.astype(cd), w.astype(cd), edges, mode,

@@ -10,12 +10,12 @@ the trunk, requires):
     sddmm:       s_e = <x[src_e], y[dst_e]>                      [E]
     sddmm_rel:   s_e = <x[src_e] @ W[rel_e], y[dst_e]>           [E]
 
-TPU dataflow: two streaming gathers feed a rowwise multiply-reduce on the
-VPU; XLA fuses the multiply-reduce into the gather epilogue, so the op
-moves 2*E*d bytes — its speed-of-light — with no intermediate [E, d]
-round-trip to HBM. The relational variant routes the per-edge transform
-through the same grouped matmul (MXU) as the conv, reusing the
-relation-sorted layout of :class:`~.rgcn_conv.RelEdges`.
+Dataflow: two streaming gathers feed a rowwise multiply-reduce, which XLA
+can fuse into the gather epilogue, so the op moves 2*E*d bytes with no
+intermediate [E, d] round trip through device memory. The relational
+variant routes the per-edge transform through the same grouped matmul as
+the conv, reusing the relation-sorted layout of
+:class:`~.rgcn_conv.RelEdges`.
 
 ``segment_softmax`` turns scores into per-destination attention weights
 (the scatter-side companion: max/sum segment reductions over dst), and
@@ -33,7 +33,7 @@ import jax
 import jax.numpy as jnp
 
 from scaling_rgcn_training_tpu.ops.grouped_matmul import grouped_matmul
-from scaling_rgcn_training_tpu.ops.rgcn_conv import RelEdges
+from scaling_rgcn_training_tpu.ops.rgcn_conv import RelEdges, take_rows
 
 
 def sddmm(x: jnp.ndarray, y: jnp.ndarray, src: jnp.ndarray,
@@ -49,7 +49,7 @@ def sddmm_rel(x: jnp.ndarray, y: jnp.ndarray, w: jnp.ndarray,
     """Relational SDDMM: ``<x[src_e] @ W[rel_e], y[dst_e]>`` -> float [E].
 
     ``w: [num_slots, d_x, d_y]``; edge rows are relation-sorted so the
-    per-edge transform is one grouped matmul (MXU), like the conv.
+    per-edge transform is one grouped matmul, like the conv.
     """
     xs = jnp.take(x, edges.src, axis=0)
     z = grouped_matmul(xs, w, edges.group_sizes, backend=backend)
@@ -75,17 +75,15 @@ def attention_aggregate(x: jnp.ndarray, w: jnp.ndarray, root: jnp.ndarray,
 
     Padding rows (``edges.norm == 0``) are masked out of the softmax and
     contribute zero. Coefficients are data-dependent, so this runs the
-    gather/grouped-matmul dataflow (the fused span kernels bake their
-    edge coefficients into the static host-built plan); returns f32.
+    gather/grouped-matmul dataflow; returns f32.
     """
     n = edges.num_nodes
     d_out = w.shape[2]
-    msg = jnp.take(x, edges.src, axis=0)
-    msg = grouped_matmul(msg, w, edges.group_sizes, backend=backend,
-                         static_offsets=edges.group_offsets)      # [E, d_out]
+    msg = grouped_matmul(take_rows(x, edges.src), w, edges.group_sizes,
+                         backend=backend)                         # [E, d_out]
     keys = jnp.dot(x, root, preferred_element_type=jnp.float32
                    ).astype(x.dtype)                              # [N, d_out]
-    kd = jnp.take(keys, edges.dst, axis=0)
+    kd = take_rows(keys, edges.dst)
     scores = jnp.sum(msg.astype(jnp.float32) * kd.astype(jnp.float32),
                      axis=-1) * jax.lax.rsqrt(jnp.float32(d_out))
     alpha = segment_softmax(scores, edges.dst, n, mask=edges.norm)

@@ -2,9 +2,9 @@
 
 The reference is single-device (model/modelTrainer.py:16, one ``.to``);
 its scaling story is algorithmic (summary graphs). This package adds the
-system story the TPU build needs: partition the relation-sorted edge list
-across a ``jax.sharding.Mesh``, aggregate locally per chip, and combine
-partial node aggregations with an ICI all-reduce — the graph analogue of
+multi-device story: partition the relation-sorted edge list across a
+``jax.sharding.Mesh``, aggregate locally per device, and combine partial
+node aggregations with an all-reduce — the graph analogue of
 data parallelism, with tensor dims small enough that replicating
 parameters is free.
 """

@@ -1,12 +1,12 @@
 """Node-partitioned R-GCN aggregation with overlapped halo exchange.
 
 The edge-partition path (parallel/spmd.py) replicates features and
-all-reduces full [N, h] partials — O(N) ICI traffic per layer regardless
+all-reduces full [N, h] partials — O(N) interconnect traffic per layer regardless
 of how sparse the cut is. This module is the scalable refinement promised
 there (SURVEY.md §7 step 6): partition NODES into contiguous ranges, give
 each device the edges whose destination it owns, and exchange only the
 boundary ("halo") source features a device actually reads, via one
-``lax.all_to_all`` over the ICI mesh axis. Per-device traffic is then
+``lax.all_to_all`` over the mesh axis (NCCL over NVLink on GPUs). Per-device traffic is then
 O(E/S + halo) instead of O(N), and both activations and outputs stay
 node-sharded end to end — no replicated [N, h] tensor ever materializes.
 
@@ -16,7 +16,7 @@ well-partitioned graph) and a HALO segment (src remote). The local
 aggregation consumes only ``x_own`` and therefore has no data dependence
 on the all_to_all; XLA's async-collective scheduler issues the exchange
 as a collective-start, runs the local grouped-matmul + segment-sum while
-rows fly over ICI, and joins at the collective-done only for the (small)
+rows are in flight, and joins at the collective-done only for the (small)
 halo segment. No manual double-buffering needed — the dataflow is what
 unlocks the overlap.
 
@@ -26,9 +26,9 @@ Layout (host-side, static per graph — built once by
 - nodes padded to ``S * n_per``; device ``s`` owns rows
   ``[s*n_per, (s+1)*n_per)``;
 - each edge lives on the owner of its ``dst``; the two per-shard edge
-  segments are each (relation, dst)-sorted and padded to common static
-  lengths, so the grouped matmuls see relation-contiguous rows exactly
-  like the single-chip layout (ops/rgcn_conv.py);
+  segments are each (relation, dst)-sorted, tile-aligned and padded to
+  common static lengths, so the grouped matmuls see relation-contiguous
+  rows exactly like the single-device layout (ops/rgcn_conv.py);
 - for every (reader s, owner p) pair the sorted unique remote sources
   are precomputed: ``send_idx[p, s]`` are owner-local rows p must ship
   to s; halo-segment edges address the received ``[S*H, d]`` buffer
@@ -54,7 +54,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from scaling_rgcn_training_tpu.ops.grouped_matmul import grouped_matmul
+from scaling_rgcn_training_tpu.ops.grouped_matmul import (
+    TILE, aligned_group_layout, grouped_matmul)
 from scaling_rgcn_training_tpu.parallel.mesh import EDGE_AXIS
 
 
@@ -82,46 +83,33 @@ class HaloShardedEdges(NamedTuple):
     n_per: int                 # owned rows per device
     halo: int                  # H: max remote rows any (reader, owner) pair ships
     num_shards: int
-    # stacked per-shard relation-banded plans (ops/span_kernels.py) so the
-    # distributed path runs the SAME fused kernels as the single chip:
-    # l* over the owner-local segment, h* over the halo segment (fwd plans
-    # keyed by dst, bwd plans keyed by the rows the gradient scatters to)
-    lfspan: Optional[object] = None
-    lbspan: Optional[object] = None
-    hfspan: Optional[object] = None
-    hbspan: Optional[object] = None
-    # stacked FusedHaloPlan (parallel/fused_halo.py): the one-kernel
-    # exchange+aggregate path (RGCN_HALO_PALLAS_A2A=fused)
-    fplan: Optional[object] = None
 
 
 jax.tree_util.register_pytree_node(
     HaloShardedEdges,
     lambda e: ((e.lsrc, e.ldst, e.lnorm, e.lgs,
-                e.hsrc, e.hdst, e.hnorm, e.hgs, e.send_idx,
-                e.lfspan, e.lbspan, e.hfspan, e.hbspan, e.fplan),
+                e.hsrc, e.hdst, e.hnorm, e.hgs, e.send_idx),
                (e.num_nodes, e.n_per, e.halo, e.num_shards)),
-    lambda aux, ch: HaloShardedEdges(*ch[:9], num_nodes=aux[0], n_per=aux[1],
-                                     halo=aux[2], num_shards=aux[3],
-                                     lfspan=ch[9], lbspan=ch[10],
-                                     hfspan=ch[11], hbspan=ch[12],
-                                     fplan=ch[13]),
+    lambda aux, ch: HaloShardedEdges(*ch, num_nodes=aux[0], n_per=aux[1],
+                                     halo=aux[2], num_shards=aux[3]),
 )
 
 
 def _sorted_padded_segment(src, dst, typ, norm, num_slots, pad_len):
-    """(relation, dst)-sort one edge segment and pad to ``pad_len`` rows."""
+    """(relation, dst)-sort one edge segment into the tile-aligned layout
+    (ops/grouped_matmul.py) of ``pad_len`` rows."""
     order = np.lexsort((dst, typ))
-    ne = len(src)
+    pos, gs = aligned_group_layout(typ[order], num_slots, pad_len)
+    assert gs.sum() == pad_len, (int(gs.sum()), pad_len)
     o_src = np.zeros(pad_len, np.int32)
     o_dst = np.zeros(pad_len, np.int32)
     o_norm = np.zeros(pad_len, np.float32)
-    o_src[:ne] = src[order]
-    o_dst[:ne] = dst[order]
-    o_norm[:ne] = norm[order]
-    gs = np.bincount(typ, minlength=num_slots).astype(np.int32)
-    gs[num_slots - 1] += pad_len - ne          # padding rows -> empty slot
+    o_src[pos], o_dst[pos], o_norm[pos] = src[order], dst[order], norm[order]
     return o_src, o_dst, o_norm, gs
+
+
+def _aligned_rows(typ, num_slots):
+    return int(aligned_group_layout(typ, num_slots)[1].sum())
 
 
 def halo_partition_edges(
@@ -183,10 +171,10 @@ def _halo_partition_edges_host(
             default=0)
     h = max(halo_multiple, -(-h // halo_multiple) * halo_multiple)
 
-    pad = lambda ne: max(pad_to_multiple,
-                         -(-ne // pad_to_multiple) * pad_to_multiple)
-    e_loc = pad(max(int(sh[5].sum()) for sh in shards))
-    e_halo = pad(max(len(sh[0]) - int(sh[5].sum()) for sh in shards))
+    step = int(np.lcm(TILE, pad_to_multiple))
+    pad = lambda ne: max(step, -(-ne // step) * step)
+    e_loc = pad(max(_aligned_rows(sh[2][sh[5]], num_slots) for sh in shards))
+    e_halo = pad(max(_aligned_rows(sh[2][~sh[5]], num_slots) for sh in shards))
 
     lsrc = np.zeros((s_n, e_loc), np.int32)
     ldst = np.zeros((s_n, e_loc), np.int32)
@@ -198,13 +186,6 @@ def _halo_partition_edges_host(
     hgs = np.zeros((s_n, num_slots), np.int32)
     send_idx = np.zeros((s_n, s_n, h), np.int32)
 
-    from scaling_rgcn_training_tpu.ops.span_kernels import (
-        plan_rel_span, stack_spans)
-    from scaling_rgcn_training_tpu.parallel.fused_halo import (
-        plan_fused_halo, stack_fused_plans)
-
-    lf_plans, lb_plans, hf_plans, hb_plans = [], [], [], []
-    fused_plans = []
     for s in range(s_n):
         src_s, dst_s, typ_s, norm_s, src_owner, own = shards[s]
         # owner-local segment: src indexes x_own directly
@@ -227,46 +208,8 @@ def _halo_partition_edges_host(
         h_dst = (dst_s[rem] - s * n_per).astype(np.int32)
         hsrc[s], hdst[s], hnorm[s], hgs[s] = _sorted_padded_segment(
             loc, h_dst, typ_s[rem], norm_s[rem], num_slots, e_halo)
-        # relation-banded plans (same kernels as the single-chip fused
-        # mode): fwd keyed by dst; bwd keyed by the gradient's target rows
-        # (x_own rows for the local segment, halo-buffer rows for the halo
-        # segment — its dx transposes back through the all_to_all)
-        # shard 0 picks the (adaptive) chunk; later shards reuse it so the
-        # stacked plans agree (stack_spans asserts a common chunk)
-        ch = lambda plans: plans[0].chunk if plans else 0
-        lf_plans.append(plan_rel_span(l_src, l_dst, typ_s[own], norm_s[own],
-                                      n_per, num_slots, chunk=ch(lf_plans)))
-        lb_plans.append(plan_rel_span(l_dst, l_src, typ_s[own], norm_s[own],
-                                      n_per, num_slots, chunk=ch(lb_plans)))
-        hf_plans.append(plan_rel_span(loc, h_dst, typ_s[rem], norm_s[rem],
-                                      n_per, num_slots, chunk=ch(hf_plans)))
-        hb_plans.append(plan_rel_span(h_dst, loc, typ_s[rem], norm_s[rem],
-                                      s_n * h, num_slots, chunk=ch(hb_plans)))
-        # one-kernel exchange+aggregate plan (parallel/fused_halo.py):
-        # local + halo edges in ring-arrival order, gather-free blocks.
-        # Gate (decided on shard 0, applied to all): the plan's
-        # (rank, read-block, dst-bucket) chunk grouping pads each group to
-        # whole chunks, so a partition with little block locality (e.g. a
-        # large uniform-random graph: ~few edges per group) would inflate
-        # the edge stream by orders of magnitude — and its per-edge Python
-        # planner would crawl building it. Skip fplan there; the
-        # all_to_all + span-kernel halo path stays the production route.
-        if num_slots <= 512 and s == 0:
-            from scaling_rgcn_training_tpu.parallel.fused_halo import (
-                fused_plan_viable)
-
-            build_fplan = fused_plan_viable(
-                l_src, l_dst, loc, h_dst, n_per, h, s_n)
-        if num_slots <= 512 and build_fplan:
-            fused_plans.append(plan_fused_halo(
-                s, l_src, l_dst, typ_s[own], norm_s[own],
-                loc, h_dst, typ_s[rem], norm_s[rem],
-                n_per, h, s_n, num_slots))
 
     return HaloShardedEdges(
-        lfspan=stack_spans(lf_plans), lbspan=stack_spans(lb_plans),
-        hfspan=stack_spans(hf_plans), hbspan=stack_spans(hb_plans),
-        fplan=stack_fused_plans(fused_plans) if fused_plans else None,
         lsrc=lsrc, ldst=ldst, lnorm=lnorm, lgs=lgs,
         hsrc=hsrc, hdst=hdst, hnorm=hnorm, hgs=hgs,
         send_idx=send_idx,
@@ -294,21 +237,17 @@ def device_put_halo_edges(edges: HaloShardedEdges, mesh: Mesh) -> HaloShardedEdg
         return put_global(
             a, NamedSharding(mesh, P(EDGE_AXIS, *([None] * (a.ndim - 1)))))
 
-    put_span = lambda sp: None if sp is None else jax.tree.map(put, sp)
     return HaloShardedEdges(
         lsrc=put(edges.lsrc), ldst=put(edges.ldst), lnorm=put(edges.lnorm),
         lgs=put(edges.lgs), hsrc=put(edges.hsrc), hdst=put(edges.hdst),
         hnorm=put(edges.hnorm), hgs=put(edges.hgs),
         send_idx=put(edges.send_idx),
         num_nodes=edges.num_nodes, n_per=edges.n_per, halo=edges.halo,
-        num_shards=edges.num_shards,
-        lfspan=put_span(edges.lfspan), lbspan=put_span(edges.lbspan),
-        hfspan=put_span(edges.hfspan), hbspan=put_span(edges.hbspan),
-        fplan=put_span(edges.fplan))
+        num_shards=edges.num_shards)
 
 
 def node_sharding(mesh: Mesh) -> NamedSharding:
-    """Sharding for node-major arrays ([N_pad, ...], leading axis on ICI)."""
+    """Sharding for node-major arrays ([N_pad, ...], leading axis over the mesh)."""
     return NamedSharding(mesh, P(EDGE_AXIS))
 
 
@@ -326,106 +265,38 @@ def halo_aggregate(
     with the owner-local aggregation (no data dependence between them);
     only the small halo segment joins on the received buffer.
     """
+    from scaling_rgcn_training_tpu.ops.rgcn_conv import take_rows
+
     n_per = edges.n_per
 
-    import os as _os
-
-    from scaling_rgcn_training_tpu.ops.span_kernels import (
-        fused_ok, shard_span, span_aggregate)
-
-    slots, d_in, d_out = w.shape
-    use_fused = (
-        edges.lfspan is not None
-        and fused_ok(slots, d_in, d_out)
-        and (jax.default_backend() == "tpu"
-             or bool(_os.environ.get("RGCN_HALO_FUSED")))
-        and backend is None)
-
-    pallas_mode = _os.environ.get("RGCN_HALO_PALLAS_A2A")
-    use_fused_onekernel = (
-        pallas_mode == "fused" and edges.fplan is not None and use_fused)
-    if pallas_mode == "fused" and not use_fused_onekernel:
-        # requested one-kernel path unavailable (no fused plan — e.g.
-        # num_slots > 512 — or a non-fused backend): fall back to the
-        # default lax.all_to_all exchange, NOT the experimental ring
-        # exchange the generic `if pallas_mode:` branch would pick
-        import warnings
-
-        warnings.warn(
-            "RGCN_HALO_PALLAS_A2A=fused requested but the one-kernel "
-            "fused halo path is unavailable "
-            f"(fplan={'set' if edges.fplan is not None else 'None'}, "
-            f"fused_ok/backend gate={use_fused}); "
-            "falling back to lax.all_to_all", stacklevel=2)
-        pallas_mode = None
-
     def body(x_own, lsrc, ldst, lnorm, lgs, hsrc, hdst, hnorm, hgs,
-             send_idx, spans, w_rep):
+             send_idx, w_rep):
         # x_own [n_per, d]; plan rows arrive with a leading length-1 shard axis
-        send = jnp.take(x_own, send_idx[0].reshape(-1), axis=0)      # [S*H, d]
-        if use_fused_onekernel:
-            # ONE Pallas kernel: remote-DMA exchange + gather-free local
-            # + per-peer halo aggregation (parallel/fused_halo.py) —
-            # overlap by construction, not by scheduler
-            from scaling_rgcn_training_tpu.parallel.fused_halo import (
-                fused_halo_apply, shard_fused_plan)
-
-            fp, lb, hb = spans
-            agg = fused_halo_apply(
-                x_own, send, w_rep, shard_fused_plan(fp), shard_span(lb),
-                shard_span(hb), EDGE_AXIS,
-                jax.default_backend() != "tpu")
-            return agg[:n_per].astype(jnp.float32)
+        send = take_rows(x_own, send_idx[0].reshape(-1))            # [S*H, d]
         send = send.reshape(edges.num_shards, edges.halo, -1)
-        if pallas_mode:
-            # experimental: the exchange as an explicit Pallas remote-DMA
-            # kernel (parallel/ring_halo.py) instead of lax.all_to_all
-            from scaling_rgcn_training_tpu.parallel.ring_halo import (
-                halo_exchange_pallas)
-
-            halo = halo_exchange_pallas(
-                send, EDGE_AXIS, jax.default_backend() != "tpu")
-        else:
-            halo = jax.lax.all_to_all(send, EDGE_AXIS, split_axis=0,
-                                      concat_axis=0, tiled=False)
-        # A/B ablation knob (scripts/measure_overlap.py): force the join
-        # BEFORE the owner-local aggregation, serializing exchange and
-        # compute — the "blocked" arm of the overlap measurement.
-        if _os.environ.get("RGCN_HALO_BLOCK_OVERLAP"):
-            x_own, halo = jax.lax.optimization_barrier((x_own, halo))
-        # owner-local aggregation: independent of `halo`, so XLA's async
-        # scheduler runs it while the exchange is in flight
-        if use_fused:
-            lf, lb, hf, hb = (shard_span(sp) for sp in spans)
-            out = span_aggregate(x_own, w_rep, lf, lb)
-            hbuf = halo.reshape(edges.num_shards * edges.halo, -1)
-            return out + span_aggregate(hbuf, w_rep, hf, hb)
-        msg = grouped_matmul(jnp.take(x_own, lsrc[0], axis=0), w_rep,
-                             lgs[0], backend=backend)
+        halo = jax.lax.all_to_all(send, EDGE_AXIS, split_axis=0,
+                                  concat_axis=0, tiled=False)
+        # owner-local aggregation: independent of `halo`, so the scheduler
+        # can run it while the exchange is in flight
+        msg = grouped_matmul(take_rows(x_own, lsrc[0]), w_rep, lgs[0],
+                             backend=backend)
         out = jax.ops.segment_sum(msg * lnorm[0][:, None], ldst[0],
                                   num_segments=n_per)
         # halo segment: joins on the received rows
         hbuf = halo.reshape(edges.num_shards * edges.halo, -1)
-        hmsg = grouped_matmul(jnp.take(hbuf, hsrc[0], axis=0), w_rep,
-                              hgs[0], backend=backend)
+        hmsg = grouped_matmul(take_rows(hbuf, hsrc[0]), w_rep, hgs[0],
+                              backend=backend)
         return out + jax.ops.segment_sum(hmsg * hnorm[0][:, None], hdst[0],
                                          num_segments=n_per)
 
-    if use_fused_onekernel:
-        spans = (edges.fplan, edges.lbspan, edges.hbspan)
-    else:
-        spans = ((edges.lfspan, edges.lbspan, edges.hfspan, edges.hbspan)
-                 if use_fused else ())
     shard = P(EDGE_AXIS)
     return jax.shard_map(
         body, mesh=mesh,
-        in_specs=(shard,) * 10 + (jax.tree.map(lambda _: shard, spans),)
-        + (P(),),
+        in_specs=(shard,) * 10 + (P(),),
         out_specs=shard,
         check_vma=False,
     )(x, edges.lsrc, edges.ldst, edges.lnorm, edges.lgs,
-      edges.hsrc, edges.hdst, edges.hnorm, edges.hgs, edges.send_idx,
-      spans, w)
+      edges.hsrc, edges.hdst, edges.hnorm, edges.hgs, edges.send_idx, w)
 
 
 def halo_rgcn_conv(x, edges: HaloShardedEdges, params, mesh: Mesh,
@@ -436,7 +307,7 @@ def halo_rgcn_conv(x, edges: HaloShardedEdges, params, mesh: Mesh,
     Same math as ops.rgcn_conv.rgcn_conv (PyG RGCNConv semantics,
     SURVEY.md L0); the root/bias term is embarrassingly node-local.
     ``compute_dtype`` (e.g. bfloat16): the per-edge streams — the halo
-    exchange itself included, HALVING the ICI bytes on the wire — run in
+    exchange itself included, halving the bytes on the wire — run in
     the low dtype while every reduction and the output stay f32, exactly
     like the single-chip mixed-precision regime.
     """

@@ -1,8 +1,8 @@
 """Device mesh management.
 
 One mesh axis, ``"e"`` (edges), is the workhorse: the per-relation edge
-list is partitioned across it and partial aggregations ride an ICI
-all-reduce. Multi-host initialization goes through
+list is partitioned across it and partial aggregations ride an
+all-reduce (NCCL on GPUs). Multi-host initialization goes through
 ``jax.distributed.initialize`` before mesh construction.
 """
 
@@ -32,23 +32,6 @@ def current_mesh() -> Optional[Mesh]:
     return _current_mesh
 
 
-def async_collective_options() -> Optional[dict]:
-    """Compiler options that make the halo all_to_all an ASYNC pair.
-
-    On this XLA version the default TPU lowering emits a *synchronous*
-    all-to-all; `xla_tpu_enable_async_all_to_all` turns it into a
-    collective start/done pair the scheduler fills with the owner-local
-    aggregation (measured on an AOT-compiled v5e:2x4 module: 32 ops — 10
-    kernel fusions — scheduled inside the collective window vs 15 when
-    the RGCN_HALO_BLOCK_OVERLAP barrier forces the join; OVERLAP_r04.json).
-    Returns None off-TPU (the flag is a TPU-plugin option, and the CPU
-    backend has no async collectives at all).
-    """
-    if jax.default_backend() != "tpu":
-        return None
-    return {"xla_tpu_enable_async_all_to_all": "true"}
-
-
 @contextlib.contextmanager
 def use_mesh(mesh: Mesh):
     """Ambient mesh for the sharded conv dispatch (ops/rgcn_conv.py)."""
@@ -68,7 +51,7 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
 
     After this returns, ``jax.devices()`` is the GLOBAL device list across
     all processes and ``make_mesh`` builds a mesh spanning hosts; the halo
-    all_to_all then rides ICI within a host and DCN across hosts.
+    all_to_all then crosses the process boundary.
     Exercised end-to-end (2 processes x 4 virtual CPU devices) by
     ``scripts/multihost_sim.py`` / ``tests/test_multihost.py``.
     """

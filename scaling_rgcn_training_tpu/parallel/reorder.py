@@ -1,13 +1,13 @@
 """Locality-aware node reordering for the halo partition.
 
 The halo partition (parallel/halo.py) assigns contiguous node ranges to
-devices, so its ICI traffic is the number of distinct remote sources each
+devices, so its exchange traffic is the number of distinct remote sources each
 shard reads — the edge cut of the *node numbering*. RDF graphs come
 numbered by sorted IRI (graphs/graph.py vocab order), which is
 uncorrelated with topology; a clustering reorder maps communities to
 contiguous ranges and shrinks the cut.
 
-This is the TPU-native stand-in for the partitioner inside distributed
+This is the stand-in for the partitioner inside distributed
 GNN systems (METIS in DistDGL etc.) — implemented from scratch as
 vectorized numpy label propagation (no external deps, runs once per graph
 on the host; the reference has nothing like it — it is single-device,

@@ -1,7 +1,8 @@
 """Edge-partitioned R-GCN aggregation under shard_map.
 
-Partitioning: the globally (relation, dst)-sorted edge list is cut into
-``num_shards`` contiguous chunks of equal (padded) size. Contiguity keeps
+Partitioning: the globally (relation, dst)-sorted, tile-aligned edge list
+is cut into ``num_shards`` contiguous chunks of equal (padded) size, each
+a whole number of grouped-matmul tiles. Contiguity keeps
 relation groups intact inside each shard (the grouped matmul still sees
 relation-sorted rows; a relation spanning a cut simply appears in both
 shards' group_sizes) and keeps dst ranges roughly local per shard.
@@ -9,8 +10,8 @@ shards' group_sizes) and keeps dst ranges roughly local per shard.
 Execution: inside ``shard_map`` each device gathers from the replicated
 feature table, runs its shard's grouped matmul + scaled segment-sum, and a
 single ``lax.psum`` over the edge axis combines partial node aggregations
-(this all-reduce is the ICI collective; per-node partitioning with
-all-to-all halo exchange is the planned refinement). Parameters and
+(per-node partitioning with all-to-all halo exchange is the refinement in
+parallel/halo.py). Parameters and
 features are replicated (they are KB-to-MB scale for this model family);
 shard_map's replication rules auto-insert the psum for their cotangents,
 so the whole thing is transparently differentiable.
@@ -18,7 +19,6 @@ so the whole thing is transparently differentiable.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Optional
 
 import jax
@@ -26,7 +26,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from scaling_rgcn_training_tpu.ops.grouped_matmul import grouped_matmul
+from scaling_rgcn_training_tpu.ops.grouped_matmul import (
+    TILE, aligned_group_layout, grouped_matmul)
 from scaling_rgcn_training_tpu.parallel.mesh import EDGE_AXIS
 
 
@@ -82,8 +83,6 @@ def _shard_rel_edges_host(edge_src, edge_dst, edge_type, num_nodes,
     edge_src = np.asarray(edge_src, np.int32)
     edge_dst = np.asarray(edge_dst, np.int32)
     edge_type = np.asarray(edge_type, np.int32)
-    e = edge_src.shape[0]
-
     order = np.lexsort((edge_dst, edge_type))
     src, dst, typ = edge_src[order], edge_dst[order], edge_type[order]
 
@@ -91,22 +90,21 @@ def _shard_rel_edges_host(edge_src, edge_dst, edge_type, num_nodes,
     _, inv, counts = np.unique(keys, return_inverse=True, return_counts=True)
     norm = (1.0 / counts[inv]).astype(np.float32)
 
-    per = -(-e // num_shards)  # ceil
-    per = max(pad_to_multiple, -(-per // pad_to_multiple) * pad_to_multiple)
-
-    s_src = np.zeros((num_shards, per), np.int32)
-    s_dst = np.zeros((num_shards, per), np.int32)
-    s_norm = np.zeros((num_shards, per), np.float32)
-    s_gs = np.zeros((num_shards, num_slots), np.int32)
-    for s in range(num_shards):
-        lo, hi = s * per, min(e, (s + 1) * per)
-        n = max(0, hi - lo)
-        if n:
-            s_src[s, :n] = src[lo:hi]
-            s_dst[s, :n] = dst[lo:hi]
-            s_norm[s, :n] = norm[lo:hi]
-            s_gs[s] = np.bincount(typ[lo:hi], minlength=num_slots)
-        s_gs[s, num_slots - 1] += per - n  # padding rows -> empty slot
+    # one tile-aligned layout of num_shards equal chunks: chunk boundaries
+    # fall on tile boundaries, so each shard's groups stay tile-aligned
+    step = int(np.lcm(TILE, pad_to_multiple))
+    pos, sizes = aligned_group_layout(typ, num_slots, num_shards * step)
+    per = int(sizes.sum()) // num_shards
+    rows = np.zeros(num_shards * per, np.int32)
+    flat_src, flat_dst = rows.copy(), rows.copy()
+    flat_norm = np.zeros(num_shards * per, np.float32)
+    flat_src[pos], flat_dst[pos], flat_norm[pos] = src, dst, norm
+    group = np.repeat(np.arange(num_slots), sizes).reshape(num_shards, per)
+    s_gs = np.stack([np.bincount(g, minlength=num_slots) for g in group]
+                    ).astype(np.int32)
+    s_src = flat_src.reshape(num_shards, per)
+    s_dst = flat_dst.reshape(num_shards, per)
+    s_norm = flat_norm.reshape(num_shards, per)
 
     return ShardedRelEdges(
         src=s_src, dst=s_dst, norm=s_norm,
@@ -126,8 +124,9 @@ def device_put_sharded_edges(edges: ShardedRelEdges, mesh: Mesh) -> ShardedRelEd
 
 def _local_aggregate(x, src, dst, norm, group_sizes, w, num_nodes, backend):
     """One device's shard: gather -> grouped matmul -> scale -> segment-sum."""
-    msg = jnp.take(x, src, axis=0)
-    msg = grouped_matmul(msg, w, group_sizes, backend=backend)
+    from scaling_rgcn_training_tpu.ops.rgcn_conv import take_rows
+
+    msg = grouped_matmul(take_rows(x, src), w, group_sizes, backend=backend)
     msg = msg * norm[:, None]
     return jax.ops.segment_sum(msg, dst, num_segments=num_nodes)
 

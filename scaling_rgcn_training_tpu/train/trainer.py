@@ -29,7 +29,8 @@ from scaling_rgcn_training_tpu.graphs.device import DeviceGraph, build_device_gr
 from scaling_rgcn_training_tpu.graphs.graph import Graph
 from scaling_rgcn_training_tpu.models import heads as model_heads
 from scaling_rgcn_training_tpu.train.losses import get_loss
-from scaling_rgcn_training_tpu.train.metrics import evaluate, predictions
+from scaling_rgcn_training_tpu.train.metrics import (
+    classification_report, evaluate, predictions)
 from scaling_rgcn_training_tpu.train.optim import apply_mask, make_optimizer
 
 
@@ -78,16 +79,7 @@ def _cached_fit_fn(apply_fn, loss_fn, activation, sum_graph, epochs,
         new_params = optax.apply_updates(params, updates)
         return (new_params, new_opt_state, rng), (loss, acc, f1_w, f1_m)
 
-    # distributed runs: ask for the async all-to-all lowering so the halo
-    # exchange overlaps the owner-local aggregation (parallel/mesh.py)
-    opts = None
-    if mesh is not None:
-        from scaling_rgcn_training_tpu.parallel.mesh import (
-            async_collective_options)
-
-        opts = async_collective_options()
-
-    @functools.partial(jax.jit, compiler_options=opts)
+    @jax.jit
     def run(params, opt_state, rng, graph):
         return jax.lax.scan(
             functools.partial(epoch_step, graph),
@@ -129,12 +121,12 @@ class Trainer:
         self.num_blocks = num_blocks
         # mixed precision for the conv's edge streams ("bfloat16" | None)
         self.compute_dtype = compute_dtype
-        # distribution: partition edges over `devices` chips ("edge" psum
+        # distribution: partition edges over `devices` devices ("edge" psum
         # path or "halo" node-partitioned all_to_all path); models run
         # unchanged via rgcn_conv's dispatch on the edge pytree type
         self.partition = partition if devices and devices > 1 else None
         # locality-aware halo partition: relabel nodes by clustering before
-        # partitioning (parallel/reorder.py) — shrinks the ICI halo
+        # partitioning (parallel/reorder.py) — shrinks the halo
         # exchange on community-structured graphs
         self.reorder = bool(reorder)
         self.mesh = None
@@ -473,14 +465,14 @@ class Trainer:
 
     def evaluate_test(self, params, apply_fn, graph: DeviceGraph,
                       activation: str, report: bool = False) -> Tuple[float, float, float]:
-        """Test-split metrics (+ optional sklearn report, modelTrainer.py:112-114).
+        """Test-split metrics (+ optional per-class report, modelTrainer.py:112-114).
 
         Cost note (distributed runs): the metric math itself stays on
         device (``evaluate`` reduces to scalars), but this path runs ONCE
         per training run outside the jitted scan, so XLA may gather the
         node-sharded ``[N_pad, C]`` logits to index ``x_test`` — at AM
         scale that is ~51 MB once per run; ``report=True`` additionally
-        pulls predictions to host for sklearn. The per-epoch validation
+        pulls predictions to host for the report. The per-epoch validation
         eval does NOT do this: it runs inside the jitted scan and carries
         scalars only.
         """
@@ -489,10 +481,8 @@ class Trainer:
                               compute_dtype=self.compute_dtype, aggr=self.aggr)
         acc, f1_w, f1_m = evaluate(logits, graph.x_test, graph.y_test, activation)
         if report:
-            from sklearn.metrics import classification_report
-
             pred = np.asarray(predictions(logits, activation))[np.asarray(graph.x_test)]
-            print(classification_report(np.asarray(graph.y_test), pred, zero_division=0))
+            print(classification_report(np.asarray(graph.y_test), pred))
         return float(acc), float(f1_w), float(f1_m)
 
 

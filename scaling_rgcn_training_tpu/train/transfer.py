@@ -5,7 +5,7 @@ Reference model/embeddingTricks.py:8-49: per summary graph, build an
 row ``idx(orgNode)`` with the trained embedding row of its summary node;
 fuse the per-summary tensors by sum / concat / stack.
 
-TPU-native: the reference's per-node Python dict loop (hot loop #2 in
+Vectorized: the reference's per-node Python dict loop (hot loop #2 in
 SURVEY.md §3.3) becomes one precomputed index pair + a vectorized scatter —
 ``base.at[org_idx].set(sum_emb[sum_idx])``.
 """

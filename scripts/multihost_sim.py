@@ -1,9 +1,9 @@
 """Multi-host (DCN) simulation: 2 processes x 4 virtual CPU devices.
 
 The reference has no distributed backend at all (SURVEY.md §2: no
-torch.distributed anywhere; one ``.to(device)``, modelTrainer.py:16). The
-TPU build's multi-host story is ``jax.distributed.initialize`` + a global
-mesh; this script proves the WHOLE path end to end without TPU pods:
+torch.distributed anywhere; one ``.to(device)``, modelTrainer.py:16). This
+framework's multi-host story is ``jax.distributed.initialize`` + a global
+mesh; this script proves the WHOLE path end to end on one CPU host:
 
 - parent: runs the 8-device single-process halo train loop (the oracle),
   then spawns 2 child processes that each own 4 virtual CPU devices and
@@ -91,25 +91,8 @@ def train_losses():
     params = (emb, l1, l2)
     state = opt.init(params)
 
-    # r5 defaults: bf16 halo/edge streams + (where emulatable) the fused
-    # span kernels. On the CPU backend the fused kernels need Pallas TPU
-    # interpret mode, which runs one slow interpreter thread per virtual
-    # device — on a 2-core host the 8 device threads starve XLA's
-    # collective rendezvous hard-timeout and the all_to_all aborts
-    # (measured r5; same limitation fused_halo.py documents for its
-    # 8-device tests). Default fused off on CPU; a real TPU slice runs it.
+    # bf16 halo/edge streams (the bench default), f32 reductions
     cd = jnp.bfloat16 if os.environ.get("MH_BF16", "1") != "0" else None
-    default_fused = "1" if jax.default_backend() == "tpu" else "0"
-    use_fused = os.environ.get("MH_FUSED", default_fused) != "0"
-    import contextlib
-
-    interp = contextlib.nullcontext()
-    if use_fused:
-        os.environ["RGCN_HALO_FUSED"] = "1"
-        if jax.default_backend() != "tpu":
-            from jax.experimental.pallas import tpu as pltpu
-
-            interp = pltpu.force_tpu_interpret_mode()
 
     def loss_of(p, hd, yv, iv):
         e_, a_, b_ = p
@@ -126,10 +109,9 @@ def train_losses():
         return optax.apply_updates(p, updates), st2, loss
 
     losses = []
-    with interp:
-        for _ in range(STEPS):
-            params, state, loss = step(params, state, hedges, y, idx)
-            losses.append(float(loss))
+    for _ in range(STEPS):
+        params, state, loss = step(params, state, hedges, y, idx)
+        losses.append(float(loss))
     return losses
 
 
@@ -188,9 +170,6 @@ def run_parent() -> None:
         "single_process_losses": ref, "multi_process_losses": multi,
         "loss_parity": ok, "hardware": "cpu (DCN simulated over localhost)",
         "features": {
-            # CPU sim: fused kernels need one interpret thread per device,
-            # unrunnable at 8 devices on this 2-core host (see train_losses)
-            "fused_span_kernels": os.environ.get("MH_FUSED", "0") != "0",
             "compute_dtype": ("bfloat16"
                               if os.environ.get("MH_BF16", "1") != "0"
                               else "float32"),

@@ -1,9 +1,9 @@
-"""Capture ONE jax.profiler trace of the bench-shape train step (VERDICT
-r3 #8: profile-trace evidence for the PERF.md step accounting).
+"""Capture ONE jax.profiler trace of the bench-shape train step (the
+device timeline behind PERF.md's step accounting).
 
-Runs the bench-identical fused train step (bf16 streams) for a few
-warmup calls, then wraps a single timed call in ``utils.tracing.trace``.
-The trace directory is written under ``traces/`` (TensorBoard-loadable;
+Runs the bench-identical train step (bf16 streams) for a few warmup
+calls, then wraps a single call in ``utils.tracing.trace``. The trace
+directory is written under ``traces/`` (git-ignored; TensorBoard-loadable;
 ``xplane.pb`` holds the device timeline).
 
 Run: python scripts/trace_step.py    (env: TRACE_DIR, BENCH_* as bench.py)
@@ -40,7 +40,7 @@ out_dir = os.environ.get("TRACE_DIR", os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "traces", "bench_step"))
 
-print(f"trace: backend={jax.default_backend()} -> {out_dir}", flush=True)
+print(f"trace: devices={jax.devices()} -> {out_dir}", flush=True)
 
 rng = np.random.default_rng(0)
 src = rng.integers(0, n, e).astype(np.int32)
@@ -69,16 +69,16 @@ def step(params, opt_state, ed):
 
 t0 = time.perf_counter()
 p, s, loss = step(params, opt_state, edges)
-float(loss)
+jax.block_until_ready((p, s, loss))
 print(f"compile+first: {time.perf_counter() - t0:.1f}s", flush=True)
 for _ in range(3):
     p, s, loss = step(p, s, edges)
-float(loss)
+jax.block_until_ready((p, s, loss))
 
 with tracing.trace(out_dir):
     with tracing.annotate("bench_train_step"):
         p, s, loss = step(p, s, edges)
-        float(loss)
+        jax.block_until_ready((p, s, loss))
 print("trace written:", out_dir, flush=True)
 for root, _, files in os.walk(out_dir):
     for f in files:

@@ -20,14 +20,14 @@ def test_check_emb_dim_rounds_to_multiple():
     assert cfg["emb"] == 63  # round(64/3)*3 = 63
 
 
-def test_check_e_trans_num_sums():
-    cfg, _ = do_checks({"emb": 63, "e_trans": False},
-                       "/root/reference/graphs/TEST/attr/sum",
-                       "/root/reference/graphs/TEST/attr/map")
+def test_check_e_trans_num_sums(tmp_path):
+    ds_dir = ensure_synthetic_dataset(str(tmp_path), num_entities=200,
+                                      num_relations=6, num_classes=3, seed=3)
+    sum_dir = os.path.join(ds_dir, "attr", "sum")
+    map_dir = os.path.join(ds_dir, "attr", "map")
+    cfg, _ = do_checks({"emb": 63, "e_trans": False}, sum_dir, map_dir)
     assert cfg["num_sums"] == 1
-    cfg, files = do_checks({"emb": 63, "e_trans": True},
-                           "/root/reference/graphs/TEST/attr/sum",
-                           "/root/reference/graphs/TEST/attr/map")
+    cfg, files = do_checks({"emb": 63, "e_trans": True}, sum_dir, map_dir)
     assert cfg["num_sums"] == 3
     assert len(files) == 3
 
@@ -81,7 +81,7 @@ def test_cli_end_to_end(ref_graphs_dir, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     cli.main(["-dataset", "TEST", "-sum", "attr", "-exp", "summation",
               "-i", "1", "-epochs", "3", "-emb", "6", "-hl", "4",
-              "-backend", "gather", "-results_root", str(tmp_path / "results")])
+              "-results_root", str(tmp_path / "results")])
     out_dirs = os.listdir(tmp_path / "results")
     assert len(out_dirs) == 1
     files = os.listdir(tmp_path / "results" / out_dirs[0])

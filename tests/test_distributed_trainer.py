@@ -72,7 +72,7 @@ def test_cli_devices_flag(synth_data, tmp_path):
     configs = vars(build_parser().parse_args(
         ["-dataset", "SYNTH", "-exp", "baseline", "-epochs", "3", "-i", "1",
          "-emb", "8", "-hl", "8", "-devices", "8", "-partition", "halo",
-         "-backend", "gather", "-data_root", root,
+         "-data_root", root,
          "-results_root", str(tmp_path / "results"),
          "-synth_entities", "200", "-synth_relations", "4",
          "-synth_classes", "3"]))

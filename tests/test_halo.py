@@ -135,32 +135,6 @@ def test_halo_two_layer_jit_train_step(mesh8):
     assert np.isfinite(losses).all()
 
 
-def test_halo_fused_span_path_matches_dense(mesh8, monkeypatch):
-    """The relation-banded span kernels inside shard_map (the TPU halo hot
-    path) match the dense oracle — values and grads (interpret mode)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    monkeypatch.setenv("RGCN_HALO_FUSED", "1")
-    x, xp, params, dense, hedges, n = _setup(mesh8, seed=4)
-    want = rgcn_conv(x, dense, params, backend="gather")
-    gd = jax.grad(lambda p, xv: jnp.sum(
-        rgcn_conv(xv, dense, p, backend="gather") ** 2), argnums=(0, 1)
-    )(params, x)
-    with pltpu.force_tpu_interpret_mode():
-        got = halo_rgcn_conv(xp, hedges, params, mesh8)
-        gh = jax.grad(lambda p, xv: jnp.sum(
-            halo_rgcn_conv(xv, hedges, p, mesh8)[:n] ** 2),
-            argnums=(0, 1))(params, xp)
-    np.testing.assert_allclose(np.asarray(got)[:n], np.asarray(want),
-                               rtol=1e-4, atol=1e-5)
-    for a, b in zip(jax.tree_util.tree_leaves(gd[0]),
-                    jax.tree_util.tree_leaves(gh[0])):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-3, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(gh[1])[:n], np.asarray(gd[1]),
-                               rtol=1e-3, atol=1e-4)
-
-
 def test_halo_partition_structure():
     """Every edge lands on its dst owner; norms are the global means."""
     src, dst, typ, n, slots = _random_graph(seed=6, n=40, e=200, r=3)

@@ -50,7 +50,7 @@ def test_transfer_matrix_beats_baseline(synth_data, compute_dtype):
     """The reference's core scientific claim (README.md:5-14): summary
     pre-training + transfer outperforms the from-scratch baseline, with
     the head ordering attention >= mlp >= summation > baseline — and it
-    must hold in the TPU-default mixed-precision regime too (bf16 edge
+    must hold in the bench-default mixed-precision regime too (bf16 edge
     streams / f32 accumulation, the bench.py default), not just f32.
 
     Recorded at 30 epochs on the 104-node split (3 seeds each):

@@ -59,34 +59,3 @@ def test_dataset_native_equals_python(ref_graphs_dir):
         assert a.nodes == b.nodes
         np.testing.assert_array_equal(a.x_train, b.x_train)
         np.testing.assert_array_equal(a.y_train, b.y_train)
-
-
-def test_span_plan_native_equals_python(monkeypatch):
-    """The C++ span-plan packer (native/spanplan.cpp) must be
-    bitwise-identical to the Python packer for every plan array, across
-    adaptive and explicit chunk choices."""
-    from scaling_rgcn_training_tpu.ops import _native_plan
-    from scaling_rgcn_training_tpu.ops.span_kernels import plan_rel_span
-
-    if _native_plan.get_lib() is None:
-        pytest.skip("native spanplan lib unavailable")
-    rng = np.random.default_rng(7)
-    for n, e, slots, kw in [
-        (300, 5000, 11, dict(bucket_rows=64, chunk=128, kspan=4)),
-        (1000, 20000, 61, dict()),              # adaptive chunk
-        (64, 700, 5, dict(kspan=16)),           # kspan clamped to slots
-    ]:
-        src = rng.integers(0, n, e).astype(np.int32)
-        dst = rng.integers(0, n, e).astype(np.int32)
-        rel = rng.integers(0, slots, e).astype(np.int32)
-        nrm = rng.random(e).astype(np.float32)
-        p_nat = plan_rel_span(src, dst, rel, nrm, n, slots, **kw)
-        monkeypatch.setenv("RGCN_NO_NATIVE_PLAN", "1")
-        p_py = plan_rel_span(src, dst, rel, nrm, n, slots, **kw)
-        monkeypatch.delenv("RGCN_NO_NATIVE_PLAN")
-        for f in ["gather_idx", "code", "norm", "offsets", "rbase"]:
-            np.testing.assert_array_equal(
-                np.asarray(getattr(p_nat, f)), np.asarray(getattr(p_py, f)),
-                err_msg=f)
-        assert (p_nat.chunk, p_nat.max_chunks, p_nat.padded_edges) == \
-            (p_py.chunk, p_py.max_chunks, p_py.padded_edges)

@@ -50,14 +50,18 @@ def random_graph(rng, n=23, e=77, r=4, d=8):
     return src, dst, typ, x
 
 
-@pytest.mark.parametrize("backend", ["gather", "ragged"])
+@pytest.mark.parametrize("backend", ["gather", "tiled"])
 def test_grouped_matmul_backends(backend):
+    from scaling_rgcn_training_tpu.ops.grouped_matmul import TILE
+
     rng = np.random.default_rng(0)
-    m, k, n, g = 40, 8, 5, 6
+    k, n, g = 8, 5, 6
+    # the tiled backend takes tile-aligned groups; the gather oracle any
+    unit = TILE if backend == "tiled" else 1
+    sizes = np.array([7, 0, 13, 5, 15, 0], np.int32) * unit
+    m = int(sizes.sum())
     lhs = jnp.asarray(rng.standard_normal((m, k)), jnp.float32)
     rhs = jnp.asarray(rng.standard_normal((g, k, n)), jnp.float32)
-    sizes = np.array([7, 0, 13, 5, 15, 0], np.int32)
-    assert sizes.sum() == m
     out = grouped_matmul(lhs, rhs, jnp.asarray(sizes), backend=backend)
     ref, start = np.zeros((m, n), np.float32), 0
     for i, s in enumerate(sizes):
@@ -66,7 +70,7 @@ def test_grouped_matmul_backends(backend):
     np.testing.assert_allclose(np.asarray(out), ref, rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("backend", ["gather", "ragged"])
+@pytest.mark.parametrize("backend", ["gather", "tiled"])
 def test_rgcn_conv_matches_dense_reference(backend):
     rng = np.random.default_rng(1)
     n, e, r, d_in, d_out = 23, 77, 4, 8, 5
@@ -91,27 +95,35 @@ def test_rgcn_conv_jit_and_grad():
     n, e, r, d_in, d_out = 16, 40, 3, 4, 3
     src, dst, typ, x = random_graph(rng, n, e, r, d_in)
     slots = 2 * r + 1
-    edges = build_rel_edges(src, dst, typ, n, slots, pad_to_multiple=64)
     params = init_rgcn_layer(jax.random.key(0), slots, d_in, d_out)
+    # padding rows must be inert: gradients identical with light vs. heavy
+    # padding (every slot is padded to whole tiles, so some is always there;
+    # the heavy layout adds thousands of rows to the final slot), through
+    # the gather oracle and the default tiled grouped matmul
+    edges_light = build_rel_edges(src, dst, typ, n, slots, pad_to_multiple=8)
+    edges_heavy = build_rel_edges(src, dst, typ, n, slots, pad_to_multiple=4096)
+    assert len(edges_heavy.src) >= len(edges_light.src) + 2048
+    assert len(edges_light.src) >= e
 
-    def loss(p, xv):
-        return jnp.sum(rgcn_conv(xv, edges, p, backend="gather") ** 2)
+    def grads(edges, backend):
+        def loss(p, xv):
+            return jnp.sum(rgcn_conv(xv, edges, p, backend=backend,
+                                     mode="edge") ** 2)
 
-    g_params, g_x = jax.jit(jax.grad(loss, argnums=(0, 1)))(params, jnp.asarray(x))
-    assert g_params.weight.shape == (slots, d_in, d_out)
-    assert g_x.shape == x.shape
-    assert np.isfinite(np.asarray(g_params.weight)).all()
-    # padding rows must be inert: gradients identical with zero vs. heavy padding
-    edges_nopad = build_rel_edges(src, dst, typ, n, slots, pad_to_multiple=8)
-    assert len(edges_nopad.src) == e  # 40 % 8 == 0 -> genuinely unpadded
+        return jax.jit(jax.grad(loss, argnums=(0, 1)))(params, jnp.asarray(x))
 
-    def loss2(p, xv):
-        return jnp.sum(rgcn_conv(xv, edges_nopad, p, backend="gather") ** 2)
-
-    g2_params, g2_x = jax.jit(jax.grad(loss2, argnums=(0, 1)))(params, jnp.asarray(x))
-    np.testing.assert_allclose(np.asarray(g_x), np.asarray(g2_x), rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(
-        np.asarray(g_params.weight), np.asarray(g2_params.weight), rtol=1e-5, atol=1e-6)
+    for backend in ("gather", "tiled"):
+        g_params, g_x = grads(edges_heavy, backend)
+        assert g_params.weight.shape == (slots, d_in, d_out)
+        assert g_x.shape == x.shape
+        assert np.isfinite(np.asarray(g_params.weight)).all()
+        g2_params, g2_x = grads(edges_light, backend)
+        np.testing.assert_allclose(np.asarray(g_x), np.asarray(g2_x),
+                                   rtol=1e-5, atol=1e-6)
+        for a, b in zip(jax.tree_util.tree_leaves(g_params),
+                        jax.tree_util.tree_leaves(g2_params)):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                       rtol=1e-5, atol=1e-6)
 
 
 def test_basis_decomposition():
@@ -168,9 +180,9 @@ def test_init_distributions():
 
 @pytest.mark.parametrize("mode", ["edge", "prematmul"])
 def test_custom_vjp_matches_autodiff(mode):
-    """relational_aggregate's hand-written backward == plain autodiff."""
-    from scaling_rgcn_training_tpu.ops.rgcn_conv import (
-        relational_aggregate, _aggregate_fwd_impl)
+    """relational_aggregate's backward (autodiff through the tiled grouped
+    matmul / the prematmul gather) == autodiff of the gather oracle."""
+    from scaling_rgcn_training_tpu.ops.rgcn_conv import relational_aggregate
 
     rng = np.random.default_rng(7)
     n, e, r, d_in, d_out = 30, 111, 3, 8, 5
@@ -182,10 +194,10 @@ def test_custom_vjp_matches_autodiff(mode):
     g_out = jnp.asarray(rng.standard_normal((n, d_out)), jnp.float32)
 
     def loss_custom(xv, wv):
-        return jnp.vdot(relational_aggregate(xv, wv, edges, mode, "gather"), g_out)
+        return jnp.vdot(relational_aggregate(xv, wv, edges, mode, "tiled"), g_out)
 
     def loss_auto(xv, wv):
-        return jnp.vdot(_aggregate_fwd_impl(xv, wv, edges, mode, "gather"), g_out)
+        return jnp.vdot(relational_aggregate(xv, wv, edges, "edge", "gather"), g_out)
 
     gx_c, gw_c = jax.grad(loss_custom, argnums=(0, 1))(xj, w)
     gx_a, gw_a = jax.grad(loss_auto, argnums=(0, 1))(xj, w)

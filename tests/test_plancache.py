@@ -59,16 +59,16 @@ def test_halo_edges_cache_roundtrip(tmp_path):
     assert _trees_equal(fresh, loaded)
 
 
-def test_cache_key_sensitivity(tmp_path, monkeypatch):
+def test_cache_key_sensitivity(tmp_path):
     src, dst, typ, n, slots = _graph(seed=5)
     d = str(tmp_path)
     build_rel_edges(src, dst, typ, n, slots, pad_to_multiple=64, cache_dir=d)
     # different graph content -> different entry
     build_rel_edges(src, dst, typ + 0 * typ, n, slots, pad_to_multiple=128,
                     cache_dir=d)
-    # different layout knob -> different entry
-    monkeypatch.setenv("RGCN_SPAN_K", "8")
-    build_rel_edges(src, dst, typ, n, slots, pad_to_multiple=64, cache_dir=d)
+    # different layout argument -> different entry
+    build_rel_edges(src, dst, typ, n, slots + 1, pad_to_multiple=64,
+                    cache_dir=d)
     files = [f for f in os.listdir(d) if f.endswith(".plan")]
     assert len(files) == 3
 

@@ -1,5 +1,5 @@
 """Locality-aware node reordering (parallel/reorder.py) + its trainer
-integration: the halo partition's ICI traffic shrinks on clustered graphs
+integration: the halo partition's exchange traffic shrinks on clustered graphs
 and training results are invariant to the relabeling.
 """
 
